@@ -1,7 +1,7 @@
 """Monte-Carlo convergence evidence: RMSE vs spp against a high-spp
 reference render (expected ~1/sqrt(spp) slope).
 
-Run on TPU from the repo root:  python docs/convergence.py
+Run on the GPU from the repo root:  python docs/convergence.py
 Writes docs/CONVERGENCE.md.
 """
 
@@ -21,6 +21,13 @@ from jaderaytracerendering_tpu.scene.scene import assemble  # noqa: E402
 from jaderaytracerendering_tpu.utils.config import RenderConfig  # noqa: E402
 
 
+def _device() -> str:
+    import bench
+
+    d = bench.device_info()
+    return f"{d['platform']} {d['kind']} ({bench.card_name_and_power_limit()})"
+
+
 def main():
     ds = demo.jade_scene(n_buddha_tris=20_000, env_shape=(128, 256))
     ds.camera.r = 2.2
@@ -30,8 +37,7 @@ def main():
 
     def render(spp, seed):
         cfg = RenderConfig(width=size, height=size, spp=spp,
-                           spp_batch=min(spp, 8), max_depth=6,
-                           traversal="sweep", engine="pool", seed=seed)
+                           spp_batch=min(spp, 8), max_depth=6, seed=seed)
         return np.asarray(R.render_film(sd, ds.camera, cfg).mean())
 
     ref = render(2048, seed=0)
@@ -53,13 +59,13 @@ def main():
     with open(os.path.join(here, "CONVERGENCE.md"), "w") as f:
         f.write(
             "# Monte-Carlo convergence (jade demo, 64x64, depth 6)\n\n"
-            "Relative RMSE of the pool engine at spp s vs a 2048-spp\n"
+            "Relative RMSE of the default route at spp s vs a 2048-spp\n"
             "reference render (independent RNG streams). Expected\n"
             "~1/sqrt(spp); measured log-log slope: "
             f"**{slope:.3f}** (ideal -0.5).\n\n"
             "| spp | relative RMSE |\n|---|---|\n"
             + "".join(f"| {s} | {r:.5f} |\n" for s, r in rows)
-            + "\nGenerated by docs/convergence.py on the TPU backend.\n"
+            + f"\nGenerated by docs/convergence.py on {_device()}.\n"
         )
     print("wrote docs/CONVERGENCE.md")
 

@@ -1,22 +1,24 @@
-"""BVH -> cluster decomposition for TPU cluster-queue traversal.
+"""BVH -> cluster decomposition for the cluster traversals.
 
-The per-node stackful walk (hitBVH, PathTrace.cu:795-859) is latency-
-bound on TPU: each visited node is one lockstep while-loop step with
-full-HBM gathers, and rays wait for the slowest lane. The TPU-native
-alternative cuts the SAH tree into *clusters* — maximal subtrees holding
-<= K triangles. Because the builder sorts triangles in place, every
+The per-node stackful walk (hitBVH, PathTrace.cu:795-859) run as a
+lockstep wavefront pays one while-loop step with device-memory gathers
+per visited node, and rays wait for the slowest lane. The alternative
+cuts the SAH tree into *clusters* — maximal subtrees holding <= K
+triangles. Because the builder sorts triangles in place, every
 subtree owns a contiguous triangle range, so a cluster is just
 (begin, count, AABB) over the sorted arrays and its triangle block can
 be fetched as one dense contiguous gather.
 
 Traversal then becomes (ops/cluster_traverse.py):
   1. test all C cluster boxes densely against every ray ([M, C] slab
-     tests — pure VPU work, no divergence);
+     tests — no divergence);
   2. visit clusters in increasing entry order (argmin over the masked
      entry row), dense-test the K-triangle block, and stop as soon as
      the nearest remaining cluster starts beyond the current best hit.
 
 Typical visits per ray: 1-5, vs ~50-200 node steps for the stack walk.
+The sweep kernel (ops/pallas/cluster_sweep.py) walks the same clusters
+block-by-block under a second level of group boxes.
 """
 
 from __future__ import annotations

@@ -1,39 +1,62 @@
 """ctypes binding to the native C++ scene runtime (SAH BVH builder).
 
 The reference's BVH build is host C++ (PathTrace.cpp:532-663); this is
-the TPU build's equivalent native runtime component. The shared library
-is built from runtime/jade_native.cpp (see runtime/build.sh); when it is
-absent we fall back to the NumPy builder in accel.bvh, which implements
-identical semantics (equivalence-tested in tests/test_native.py).
+its native counterpart. The shared library is compiled from
+runtime/jade_native.cpp at first use into ``<checkout>/build/`` (listed
+in .gitignore) with the host's C++ compiler (``$CXX``, default g++);
+``python -m jaderaytracerendering_tpu.accel.native`` builds it ahead of
+time. When no compiler is available we fall back to the NumPy builder
+in accel.bvh, which implements identical semantics (equivalence-tested
+in tests/test_native.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
+import tempfile
 
 import numpy as np
 
 from . import bvh as bvh_mod
 
 _LIB_NAME = "libjade_native.so"
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG, "runtime", "jade_native.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 _lib = None
 _lib_checked = False
 
 
+def build_library() -> str | None:
+    """Compile runtime/jade_native.cpp into BUILD_DIR; returns the path,
+    or None if the compiler is missing or fails. Portable flags only (no
+    -march=native): the checkout may move between hosts."""
+    out = os.path.join(BUILD_DIR, _LIB_NAME)
+    if os.path.exists(out):
+        return out
+    try:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        # compile to a private name, then rename: concurrent first uses
+        # (test workers) never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        subprocess.run(
+            [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-shared",
+             "-std=c++17", "-o", tmp, _SOURCE],
+            check=True, capture_output=True, timeout=300)
+        os.replace(tmp, out)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out
+
+
 def _find_lib() -> str | None:
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    candidates = [
-        os.path.join(here, "runtime", _LIB_NAME),
-        os.path.join(os.path.dirname(here), "build", _LIB_NAME),
-    ]
     env = os.environ.get("JADE_NATIVE_LIB")
     if env:
-        candidates.insert(0, env)
-    for c in candidates:
-        if os.path.exists(c):
-            return c
-    return None
+        return env if os.path.exists(env) else None
+    return build_library()
 
 
 def load_library():
@@ -127,8 +150,8 @@ def build(
     if lib is None:
         if required:
             raise RuntimeError(
-                "native BVH backend requested but libjade_native.so not "
-                "built; run jaderaytracerendering_tpu/runtime/build.sh"
+                "native BVH backend requested but libjade_native.so could "
+                f"not be built from {_SOURCE} (is a C++ compiler on PATH?)"
             )
         return bvh_mod.build(p1, p2, p3, leaf_size=leaf_size, method=method)
 
@@ -160,3 +183,10 @@ def build(
         index=index[:k].copy(), aa=aa[:k].copy(), bb=bb[:k].copy(),
     )
     return nodes, perm
+
+
+if __name__ == "__main__":
+    path = build_library()
+    if path is None:
+        raise SystemExit(f"failed to build {_LIB_NAME} from {_SOURCE}")
+    print(path)

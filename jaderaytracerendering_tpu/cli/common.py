@@ -14,6 +14,7 @@ from ..scene import hdr as hdr_mod, objloader, procedural, serialization
 from ..scene.scene import SceneObject
 from ..utils.config import RenderConfig
 from ..utils.logging import stage
+from ..integrator.render import ENGINES, TRAVERSALS
 
 _PROCEDURAL = {
     "procedural://buddha": lambda: procedural.buddha_standin(20_000),
@@ -110,20 +111,28 @@ def add_common_args(ap) -> None:
     ap.add_argument("--height", type=int)
     ap.add_argument("--spp", type=int)
     ap.add_argument("--max-depth", dest="max_depth", type=int)
-    ap.add_argument("--traversal",
-                    choices=["sweep", "clusters", "gemm", "bvh", "brute"])
-    ap.add_argument("--engine", choices=["pool", "scan", "mega"])
+    ap.add_argument("--traversal", choices=list(TRAVERSALS))
+    ap.add_argument("--engine", choices=list(ENGINES))
     ap.add_argument("--spp-batch", dest="spp_batch", type=int)
     ap.add_argument("--rays-per-launch", dest="rays_per_launch", type=int)
     ap.add_argument("--seed", type=int)
     ap.add_argument("--tonemap", choices=["aces", "reinhard", "none"])
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (kernels interpreted; tests and "
+                         "rehearsals at small sizes)")
 
 
 def select_backend(args) -> None:
-    if getattr(args, "cpu", False):
-        import jax
+    """--cpu selects the CPU backend; otherwise JAX must find a GPU (no
+    silent CPU fallback)."""
+    import jax
 
+    if getattr(args, "cpu", False):
         jax.config.update("jax_platforms", "cpu")
         # CPU executable serialization segfaults (package __init__)
         jax.config.update("jax_enable_compilation_cache", False)
+        return
+    platform = jax.devices()[0].platform
+    if platform != "gpu":
+        raise SystemExit(f"JAX found no GPU (platform {platform!r}); pass "
+                         "--cpu to run on the CPU")

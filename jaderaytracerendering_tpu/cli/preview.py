@@ -34,16 +34,13 @@ def main(argv=None) -> None:
     common.add_common_args(ap)
     ap.add_argument("--frames", type=int, default=0,
                     help="headless: render N progressive frames then exit")
-    ap.add_argument("--out", default="RenderResultTpu.bmp")
+    ap.add_argument("--out", default="RenderResult.bmp")
     ap.add_argument("--save-every", type=int, default=0,
                     help="write a preview frame every N frames")
-    ap.add_argument("--bands", type=int, default=0,
-                    help="progressive pixel bands per displayed frame "
-                         "(0 = auto = 1: the r4 hardware batch measured "
-                         "banding WORSE at 1024^2 — 2.95 fps at B=4 vs "
-                         "3.63 un-banded; each banded frame pays the "
-                         "full per-dispatch fixed cost for 1/B of the "
-                         "pixels. Kept for explicit experimentation.)")
+    ap.add_argument("--bands", type=int, default=1,
+                    help="progressive pixel bands: each displayed frame "
+                         "samples one of B bands (B must divide the "
+                         "pixel count; 1 = every pixel every frame)")
     args = ap.parse_args(argv)
     common.select_backend(args)
 
@@ -71,22 +68,13 @@ def main(argv=None) -> None:
         cfg = cfg.replace(spp=1, spp_batch=1)
     if args.rays_per_launch is None:
         # the 2-bounce no-NEE preview compiles far smaller than the full
-        # integrator, so much bigger launches are safe — and the frame is
-        # dispatch-bound: 16k-ray chunks = 0.4 fps at 1024^2, 256k = 3.5
+        # integrator, so a frame takes bigger launches
         cfg = cfg.replace(rays_per_launch=1 << 18)
-    npix_ = cfg.width * cfg.height
-    bands = args.bands
-    if bands == 0:
-        # auto = 4 bands: the r5 matrix measured banded preview FASTER
-        # (6.88/6.25 fps vs 3.88/3.56 un-banded at 1024^2) once the
-        # prologue-era engine cut per-frame compute below the fixed
-        # display-transfer cost — reversing the r4 finding (banded
-        # frames pay the fixed ~40 ms u8 transfer for 1/B of the
-        # sampling work; that trades well only when compute/B < fixed)
-        bands = 4
-    tile_w = int(getattr(cfg, "mega_tile", 256) or 256)
-    if bands > 1 and npix_ % (bands * tile_w) == 0:
-        cfg = cfg.replace(preview_bands=bands)
+    if args.bands > 1:
+        if (cfg.width * cfg.height) % args.bands:
+            raise SystemExit(f"--bands {args.bands} must divide the "
+                             f"{cfg.width}x{cfg.height} pixel count")
+        cfg = cfg.replace(preview_bands=args.bands)
     sd = assemble(objects, env, leaf_size=cfg.bvh_leaf_size, xp=jnp)
     stage(f"scene: {sd.n_triangles} tris, {sd.n_nodes} nodes, {sd.n_emit} lights")
 
@@ -111,9 +99,8 @@ def main(argv=None) -> None:
         # pipelined display (the GL loop's implicit double buffering,
         # PathTrace.cpp:1180-1187): the dispatch above is async, so
         # transferring the PREVIOUS frame's u8 image overlaps this
-        # frame's compute. The transfer of a FULL buffer is the honest
-        # completion barrier for the frame it belongs to — each printed
-        # FPS interval contains exactly one whole displayed frame.
+        # frame's compute; each printed FPS interval holds one whole
+        # displayed frame.
         np.asarray(pending if pending is not None else disp)
         pending = disp
         frame += 1

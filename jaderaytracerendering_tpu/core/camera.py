@@ -162,7 +162,7 @@ def generate_rays_p(
 
     Identical math per component (vecmath.vtransform mirrors _transform's
     m[col, row] products), on dense [N] planes — the integrator's hot
-    path never materializes padded [N, 3] buffers (docs/PERF.md)."""
+    path never materializes [N, 3] buffers."""
     px = (pixel_id % width).astype(xp.float32)
     py = (pixel_id // width).astype(xp.float32)
     u1 = rng.uniform(xp, pixel_id, sample_id, 0, rng.DrawSites.JITTER_X, seed)

@@ -11,10 +11,10 @@ Here every random draw is a pure function of a counter tuple
 mixer on uint32. Properties:
 
 - stateless: any lane of any wavefront can be recomputed independently,
-  which is what lets the film be sharded across a TPU mesh with no RNG
+  which is what lets the film be sharded across a device mesh with no RNG
   state exchange, and lets checkpoint/resume be bitwise exact;
 - backend-exact: uint32 arithmetic is identical in NumPy and XLA, so the
-  CPU oracle (cpuref/) consumes bit-identical streams to the TPU
+  CPU oracle (cpuref/) consumes bit-identical streams to the device
   integrator — the RMSE gate compares real float math, not RNG noise.
 
 Sites are small static integers enumerating draw call sites inside one
@@ -81,53 +81,9 @@ def uniform(xp, pixel_id, sample_id, bounce, site, seed=0):
     (fshader_render.fsh:96-98). Top 24 bits -> exact float32 in [0, 1).
     """
     bits = hash_counters(xp, pixel_id, sample_id, bounce, site, seed)
-    # cast via int32 (exact: top-24-bit values < 2^24) — Mosaic has no
-    # direct u32 -> f32 lowering, and this path also runs in-kernel
+    # cast via int32 (exact: top-24-bit values < 2^24)
     return (bits >> _u32(8, xp)).astype(xp.int32).astype(xp.float32) \
         * xp.float32(1.0 / 16777216.0)
-
-
-def uniform_sites(xp, pixel_id, sample_id, bounce, sites, seed=0):
-    """Batched ``uniform``: all S static ``sites`` in ONE [S, TM] hash.
-
-    Bit-identical to ``[uniform(xp, pix, smp, b, s, seed) for s in
-    sites]`` (tests/test_core.py pins this): the (pixel, sample) mix +
-    first pcg_hash and the bounce/seed terms are site-independent, so
-    they compute once on the [1, TM] row; only the final pcg_hash runs
-    on the stacked [S, TM] block — which Mosaic packs S rows per vreg
-    group where S separate [1, TM] chains would each occupy whole
-    sublane-sparse vregs (docs/PERF.md sublane-packing microprobe).
-    Returns [S, TM] f32; callers slice rows."""
-    import contextlib
-
-    import numpy as _np
-
-    guard = (_np.errstate(over="ignore") if xp is _np
-             else contextlib.nullcontext())
-    with guard:
-        h = _u32(pixel_id, xp) * _u32(_K_PIXEL, xp)
-        h = h + _u32(sample_id, xp) * _u32(_K_SAMPLE, xp)
-        h = pcg_hash(h, xp)
-        h = h + _u32(bounce, xp) * _u32(_K_BOUNCE, xp)
-        h = h + _u32(seed, xp) * _u32(_K_SEED, xp)
-        if xp is _np:
-            site_col = _np.array([int(s) for s in sites],
-                                 _np.uint32).reshape(len(sites), 1)
-        else:
-            # Pallas kernels reject captured array constants — build
-            # the [S, 1] site column from an iota + scalar where-chain
-            # (S is small and static; this unrolls to S selects)
-            import jax
-
-            io = jax.lax.broadcasted_iota(xp.int32, (len(sites), 1), 0)
-            site_col = None
-            for i, s in enumerate(sites):
-                term = xp.where(io == i, int(s), 0)
-                site_col = term if site_col is None else site_col + term
-            site_col = site_col.astype(xp.uint32)
-        bits = pcg_hash(h + site_col * _u32(_K_SITE, xp), xp)
-        return (bits >> _u32(8, xp)).astype(xp.int32).astype(xp.float32) \
-            * xp.float32(1.0 / 16777216.0)
 
 
 def wang_hash(seed, xp):

@@ -3,8 +3,9 @@
 The reference carries its own float3 wrappers (vec3_hs / vec3_dv,
 PathTrace.cu:110-289). Here vectors are arrays of shape [..., 3] and every
 helper takes an ``xp`` array module (numpy or jax.numpy) so the exact same
-code path produces the CPU oracle and the TPU kernels — uint/float op
-sequences are identical, which is what makes CPU-vs-TPU RMSE checks tight.
+code path produces the CPU oracle and the device integrator — uint/float
+op sequences are identical, which is what makes CPU-vs-GPU RMSE checks
+tight.
 """
 
 from __future__ import annotations
@@ -103,10 +104,7 @@ def reflect(d, n, xp):
 
 # ---- lane-dense SoA ("plane") vectors --------------------------------------
 #
-# TPU layouts pad the minor (lane) dimension to 128, so a [M, 3] float32
-# buffer materializes at 42x its payload (docs/PERF.md round-3 census:
-# 302 MB/iter of padded-layout copies moving 17 MB). V3 keeps each
-# component as its own dense [M] plane; all arithmetic is elementwise on
+# V3 keeps each component of a 3-vector as its own dense [M] plane; all arithmetic is elementwise on
 # same-shaped 1-D arrays, which XLA fuses without any layout conversion.
 # V3 is a NamedTuple, hence a pytree: it can live in lax.scan /
 # while_loop carries directly.
@@ -166,7 +164,7 @@ def v3unstack(a) -> V3:
 
 
 def v3rows(rows_t, start: int) -> V3:
-    """Three consecutive sublane rows of a transposed [K, M] table -> V3."""
+    """Three consecutive rows of a transposed [K, M] table -> V3."""
     return V3(rows_t[start], rows_t[start + 1], rows_t[start + 2])
 
 

@@ -7,10 +7,8 @@ multiplicative ``history`` throughput, emissive + sky accumulation, and
 interactive FPS. Used by the preview CLI per progressive frame; the full
 wavefront integrator (wavefront.py) is the offline/'R-key' path.
 
-Runs on lane-dense SoA planes like the main integrator (wavefront.py
-module docstring): dense [M] planes, V3 triples, transposed row tables,
-feats-level kernel entry — preview frames are dispatch/layout-bound, so
-the plane form is what makes large interactive launches cheap.
+Runs on SoA planes like the main integrator (wavefront.py module
+docstring): dense [M] planes, V3 triples, transposed row tables.
 """
 
 from __future__ import annotations

@@ -2,9 +2,8 @@
 
 The reference's hitArray (PathTrace.cu:776-792) is the leaf-range version
 of this; applied to the whole scene it is the oracle traversal
-(SURVEY §4 property-test row). On TPU this is the throughput-optimal path
-for small scenes: the [rays x tris] sweep is dense VPU work with zero
-divergence, chunked over the triangle axis to bound memory.
+(SURVEY §4 property-test row): the [rays x tris] sweep is dense work
+with zero divergence, chunked over the triangle axis to bound memory.
 """
 
 from __future__ import annotations
@@ -87,3 +86,41 @@ def nearest_hit_jnp(origins, dirs, exclude, p1, p2, p3, method="mt", chunk=2048)
             jnp.int32(0))
     (best_t, best_i, _), _ = jax.lax.scan(body, init, (p1c, p2c, p3c))
     return best_t < INF, best_i, best_t
+
+
+def compare_hits(want, got, origins, dirs, p1, p2, p3, rtol=1e-5):
+    """Check an intersector's (hit, index, t) against this oracle's.
+
+    ``want``/``got`` are (hit, index, t) NumPy triples for the same rays.
+    Hit flags must be equal and hit distances agree to ``rtol``. Indices
+    must be equal except at *near-ties*: rays that hit two triangles at
+    the same distance up to rounding (shared edges, coplanar faces),
+    where fp32 rounding decides the winner. A differing index counts as
+    a near-tie only if NumPy re-intersects the ray with the reported
+    triangle at a distance within ``rtol`` of the oracle's.
+
+    Returns a dict of counts and the largest relative t error; raises
+    AssertionError on any other disagreement."""
+    hb, ib, tb = (np.asarray(a) for a in want)
+    hs, is_, ts = (np.asarray(a) for a in got)
+    flag_bad = int((hb != hs).sum())
+    both = hb & hs
+    rel = np.abs(ts[both] - tb[both]) / np.maximum(np.abs(tb[both]), 1e-30)
+    t_err = float(rel.max()) if rel.size else 0.0
+    diff = np.nonzero(both & (ib != is_))[0]
+    ties = 0
+    if diff.size:
+        j = is_[diff]
+        hit, t = intersect.ray_triangle(
+            np.asarray(origins, np.float32)[diff],
+            vm.normalize(np.asarray(dirs, np.float32)[diff], np),
+            p1[j], p2[j], p3[j], np)
+        ties = int((hit & (np.abs(t - tb[diff])
+                           <= rtol * np.abs(tb[diff]))).sum())
+    out = dict(rays=int(hb.size), hits=int(hb.sum()),
+               flag_mismatch=flag_bad, index_mismatch=int(diff.size),
+               near_ties=ties, t_max_rel_err=t_err)
+    assert flag_bad == 0, f"hit flags differ: {out}"
+    assert ties == diff.size, f"index differs off a near-tie: {out}"
+    assert t_err <= rtol, f"t off by more than rtol={rtol}: {out}"
+    return out

@@ -1,4 +1,4 @@
-"""Cluster-queue nearest-hit: the TPU-native traversal (see accel.clusters).
+"""Cluster-queue nearest-hit in plain jnp (see accel.clusters).
 
 Per while-loop iteration every live ray visits its nearest unvisited
 candidate cluster (argmin over a [M, C] entry-distance matrix) and

@@ -1,4 +1,4 @@
-"""Ray-triangle intersection as MXU matmuls ("tracing as GEMM").
+"""Ray-triangle intersection as matrix products ("tracing as GEMM").
 
 The Moller-Trumbore scalars factor into bilinear forms: with unnormalized
 determinant-form terms and per-ray features
@@ -14,14 +14,12 @@ each triangle contributes four coefficient rows such that
 
 and u = su/a, v = sv/a, t = st/a reproduce the classic test. One
 [M, 10] @ [10, 4T] matmul therefore evaluates every ray against every
-triangle on the systolic array — the TPU-native replacement for the
-reference's per-thread triangle loop (hitArray, PathTrace.cu:776-792):
-zero gathers, zero divergence, FLOPs where the hardware has them.
-
-Used as the whole-scene intersector for small/medium scenes and as the
-leaf-block test of the cluster traversal for large ones. Chunked over
-triangles with a lax.scan so [M, chunk] epilogues fuse into the matmul
-instead of materializing [M, T] buffers.
+triangle — a dense replacement for the reference's per-thread triangle
+loop (hitArray, PathTrace.cu:776-792) with zero gathers and zero
+divergence. An alternative whole-scene intersector (traversal='gemm'),
+chunked over triangles with a lax.scan so [M, chunk] epilogues fuse
+into the product instead of materializing [M, T] buffers. The product
+runs at Precision.HIGHEST (full fp32).
 """
 
 from __future__ import annotations
@@ -62,47 +60,6 @@ def pack_coefficients(p1: np.ndarray, p2: np.ndarray, p3: np.ndarray) -> np.ndar
     return coef.reshape(t_cnt * 4, 10).T.astype(np.float32).copy()
 
 
-def pack_cluster_coefficients(p1, p2, p3, begin, count, kp) -> np.ndarray:
-    """Per-cluster planar coefficient blocks [C, 10, 4*kp] (numpy, host).
-
-    Same bilinear forms as pack_coefficients but laid out for the Pallas
-    MXU sweep kernel (ops/pallas/cluster_sweep_mxu.py): rows are the 10
-    ray features, columns are four kp-wide planes [a | su | sv | st] so
-    static in-kernel slices stay 128-lane aligned (kp % 32 == 0 => each
-    plane offset is a multiple of 128 bytes of lanes... kp*4 % 128 == 0).
-    Padding columns are all-zero: a = su = sv = st = 0 never passes the
-    strict t-sign test, so pad slots can't hit.
-    """
-    p1 = np.asarray(p1, np.float64)
-    p2 = np.asarray(p2, np.float64)
-    p3 = np.asarray(p3, np.float64)
-    e1 = p2 - p1
-    e2 = p3 - p1
-    n = np.cross(e1, e2)
-    t_cnt = len(p1)
-    coef = np.zeros((t_cnt, 4, 10), np.float64)
-    coef[:, 0, 0:3] = -n
-    coef[:, 1, 0:3] = -np.cross(e2, p1)
-    coef[:, 1, 3:6] = -e2
-    coef[:, 2, 0:3] = -np.cross(p1, e1)
-    coef[:, 2, 3:6] = e1
-    coef[:, 3, 6:9] = n
-    coef[:, 3, 9] = -np.sum(p1 * n, axis=-1)
-    coef = coef.astype(np.float32)
-
-    c = len(begin)
-    # 16 feature rows (10 real + 6 zero): Mosaic DMA slices need the
-    # sublane dim 8-aligned for the HBM-streaming kernel, and the MXU
-    # contraction is 128-padded anyway so the zero rows cost nothing
-    out = np.zeros((c, 16, 4 * kp), np.float32)
-    for ci in range(c):
-        b, cnt = int(begin[ci]), int(count[ci])
-        blk = coef[b : b + cnt]                      # [cnt, 4, 10]
-        for j in range(4):
-            out[ci, :10, j * kp : j * kp + cnt] = blk[:, j, :].T
-    return out
-
-
 def ray_features(origins, dirs, xp):
     """[M, 10] feature matrix for packed coefficients."""
     w = vm.cross(dirs, origins, xp)
@@ -110,27 +67,9 @@ def ray_features(origins, dirs, xp):
     return xp.concatenate([dirs, w, origins, ones], axis=-1)
 
 
-def ray_features_t16(origins, dirs, xp):
-    """Transposed, 16-row-padded features [16, M] for the sweep kernels.
-
-    Lane-dense layout: a [M, 10] buffer on TPU pads 10 lanes to 128
-    (33 MB at the bounce-batch size); [16, M] keeps lanes dense and the
-    16 sublanes match the padded coefficient-row count, so kernels use
-    the transposed tile directly (zero rows hit zero coefficient rows).
-    """
-    w = vm.cross(dirs, origins, xp)
-    m = origins.shape[0]
-    rows = [dirs[:, 0], dirs[:, 1], dirs[:, 2],
-            w[:, 0], w[:, 1], w[:, 2],
-            origins[:, 0], origins[:, 1], origins[:, 2],
-            xp.ones((m,), origins.dtype)]
-    rows += [xp.zeros((m,), origins.dtype)] * 6
-    return xp.stack(rows, axis=0)
-
-
 @functools.partial(jax.jit, static_argnames=("chunk",))
 def nearest_hit_gemm_jnp(origins, dirs, exclude, coefs, chunk=2048):
-    """MXU brute-force nearest hit.
+    """Matrix-product brute-force nearest hit.
 
     coefs: [10, 4*T] from pack_coefficients (T padded to chunk multiples
     upstream or handled by masking here). Returns (hit, index, t) with t
@@ -150,7 +89,10 @@ def nearest_hit_gemm_jnp(origins, dirs, exclude, coefs, chunk=2048):
 
     def body(carry, cchunk):
         best_t, best_i, base = carry
-        s = jnp.dot(feats, cchunk, preferred_element_type=jnp.float32)
+        # HIGHEST: a default-precision f32 product may run in TF32 on the
+        # GPU, moving t by ~1e-3 relative
+        s = jnp.dot(feats, cchunk, precision=jax.lax.Precision.HIGHEST,
+                    preferred_element_type=jnp.float32)
         s = s.reshape(m, chunk, 4)
         a = s[..., 0]
         inv = 1.0 / a

@@ -1,1 +1,1 @@
-from . import cluster_sweep, postfx  # noqa: F401
+"""Pallas kernels (Triton route, compiled for the GPU)."""

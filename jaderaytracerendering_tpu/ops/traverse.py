@@ -1,7 +1,7 @@
 """Batched BVH traversal over ray wavefronts.
 
 The reference traverses with a per-thread int stack in a divergent SIMT
-loop (hitBVH, PathTrace.cu:795-859 / fshader_render.fsh:266-328). The TPU
+loop (hitBVH, PathTrace.cu:795-859 / fshader_render.fsh:266-328). This
 version keeps the same algorithm — explicit stack, root at node 1,
 near-child-first ordering by AABB entry distance, leaf ranges tested
 brute-force with source-index exclusion — but runs it as a *lockstep
@@ -13,7 +13,7 @@ entry distance exceeds the lane's current best hit), which never changes
 the nearest hit but cuts visited nodes sharply.
 
 The same body drives NumPy (Python while loop — the oracle) and JAX
-(lax.while_loop under jit) so oracle and TPU traversals are the same
+(lax.while_loop under jit) so oracle and device traversals are the same
 code, not a port of a port.
 """
 
@@ -111,8 +111,13 @@ def _step(state, origins, dirs, exclude, sd, stack_size, xp, method):
     return sp, stack, best_t, best_i
 
 
-def _init_state(m, stack_size, xp):
-    sp = xp.ones(m, xp.int32)
+def _init_state(dirs, stack_size, xp):
+    # zero / NaN directions (masked wavefront lanes) start with an empty
+    # stack: they miss, and a NaN slab test would otherwise accept every
+    # node and walk the whole tree
+    m = dirs.shape[0]
+    live = xp.sum(xp.abs(dirs), axis=-1) > 0
+    sp = live.astype(xp.int32)
     stack = xp.zeros((m, stack_size), xp.int32)
     if xp is np:
         stack[:, 0] = 1
@@ -129,7 +134,7 @@ def nearest_hit_bvh_np(origins, dirs, exclude, sd, stack_size=64, method="mt"):
     origins = np.asarray(origins, np.float32)
     dirs = vm.normalize(np.asarray(dirs, np.float32), np)
     exclude = np.asarray(exclude, np.int32)
-    state = _init_state(origins.shape[0], stack_size, np)
+    state = _init_state(dirs, stack_size, np)
     while (state[0] > 0).any():
         state = _step(state, origins, dirs, exclude, sd, stack_size, np, method)
     _, _, best_t, best_i = state
@@ -140,9 +145,9 @@ def nearest_hit_bvh_np(origins, dirs, exclude, sd, stack_size=64, method="mt"):
 def nearest_hit_bvh_jnp(
     origins, dirs, exclude, sd, stack_size=64, method="mt", max_iters=100_000
 ):
-    """JAX traversal under lax.while_loop (jit/TPU path)."""
+    """JAX traversal under lax.while_loop (jit/device path)."""
     dirs = vm.normalize(dirs, jnp)
-    state = _init_state(origins.shape[0], stack_size, jnp)
+    state = _init_state(dirs, stack_size, jnp)
     state = state + (jnp.int32(0),)
 
     def cond(s):

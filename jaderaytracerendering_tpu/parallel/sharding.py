@@ -1,24 +1,25 @@
-"""Multi-chip rendering over a jax.sharding Mesh.
+"""Multi-GPU rendering over a jax.sharding Mesh.
 
 The reference has no multi-device capability (SURVEY §2.3): its
-parallelism is one CUDA grid on one GPU. The TPU build's scaling axes are
+parallelism is one CUDA grid on one GPU. This build's scaling axes are
 
 - **film tiles (data parallel)**: pixel ids sharded over the mesh's
-  'tile' axis; each chip renders its film shard with the replicated scene
+  'tile' axis; each GPU renders its film shard with the replicated scene
   and no communication (the tile-accumulation analogue of DP);
-- **spp (sample parallel)**: every chip renders the *same* pixels at a
-  different sample offset and radiance sums are psum-reduced over ICI —
-  the renderer's analogue of sequence/batch-split axes.
+- **spp (sample parallel)**: every GPU renders the *same* pixels at a
+  different sample offset and radiance sums are psum-reduced (NCCL over
+  NVLink) — the renderer's analogue of sequence/batch-split axes.
 
 Both compose in one 2D mesh ('tile', 'spp'). Scene buffers are
-replicated; the film is sharded on 'tile'.
+replicated; the film is sharded on 'tile'. The GPUs of one host are
+joined all to all, so the mesh shape follows the work split alone.
 
-DCN-spanning multi-slice layers jax.distributed.initialize on top of the
-SAME render code path: ``init_distributed()`` starts the multi-process
-runtime, ``make_multislice_mesh()`` lays the 'tile' axis within a slice
-(collectives ride ICI) and the 'spp' axis ACROSS slices — the spp-axis
-psum moves one [P, 3] radiance block per batch, the only traffic light
-enough to cross DCN. ``host_local_to_global`` lifts each process's
+Several hosts layer jax.distributed.initialize on top of the SAME render
+code path: ``init_distributed()`` starts the multi-process runtime,
+``make_multihost_mesh()`` lays the 'tile' axis within a host (NVLink)
+and the 'spp' axis ACROSS hosts — the spp-axis psum moves one [P, 3]
+radiance block per batch, the only traffic light enough for the
+inter-host network. ``host_local_to_global`` lifts each process's
 host-local inputs into global arrays for the sharded entry points.
 """
 
@@ -54,15 +55,15 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
                      local_device_ids=None) -> bool:
-    """Start JAX's multi-process (DCN-spanning) runtime — the reference's
-    'communication backend' row at pod scale (SURVEY §2.3): after this,
-    jax.devices() is GLOBAL across all slices/processes and the sharded
-    render entry points run unchanged over a multislice mesh.
+    """Start JAX's multi-process runtime — the reference's
+    'communication backend' row (SURVEY §2.3): after this, jax.devices()
+    is GLOBAL across all hosts/processes and the sharded render entry
+    points run unchanged over a multi-host mesh.
 
-    On TPU pods all arguments auto-detect from the environment; pass them
-    explicitly for CPU smoke rigs or custom launchers. Returns True if
-    this call initialized the runtime, False if it already was (safe to
-    call more than once)."""
+    Pass the coordinator address (``host:port``), process count and
+    process id explicitly: nothing in a plain GPU host's environment
+    describes a cluster. Returns True if this call initialized the
+    runtime, False if it already was (safe to call more than once)."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -75,28 +76,29 @@ def init_distributed(coordinator_address: Optional[str] = None,
         raise
 
 
-def make_multislice_mesh(tile: Optional[int] = None,
-                         spp_per_slice: int = 1,
-                         axis_names: Sequence[str] = ("tile", "spp")) -> Mesh:
-    """Global mesh for multi-slice rendering: 'tile' runs WITHIN a slice
-    (film-shard collectives ride ICI), 'spp' runs ACROSS slices (times
-    spp_per_slice within), so the only DCN traffic is the one [P, 3]
-    radiance psum per batch. Requires init_distributed() first (or a
-    single process, where it degenerates to make_mesh).
+def make_multihost_mesh(tile: Optional[int] = None,
+                        spp_per_slice: int = 1,
+                        axis_names: Sequence[str] = ("tile", "spp")) -> Mesh:
+    """Global mesh for multi-host rendering: 'tile' runs WITHIN a host
+    (film-shard collectives ride NVLink), 'spp' runs ACROSS hosts (times
+    spp_per_slice within), so the only inter-host traffic is the one
+    [P, 3] radiance psum per batch. Requires init_distributed() first
+    (or a single process, where it degenerates to make_mesh).
 
-    tile defaults to all of a slice's devices divided by spp_per_slice."""
+    tile defaults to all of a host's devices divided by spp_per_slice."""
     devs = jax.devices()
     n_proc = max(d.process_index for d in devs) + 1
     by_slice = [[d for d in devs if d.process_index == s]
                 for s in range(n_proc)]
     per = len(by_slice[0])
-    assert all(len(b) == per for b in by_slice), "uneven slices"
-    assert per % spp_per_slice == 0, "spp_per_slice must divide slice size"
+    assert all(len(b) == per for b in by_slice), "uneven hosts"
+    assert per % spp_per_slice == 0, "spp_per_slice must divide host size"
     if tile is None:
         tile = per // spp_per_slice
-    assert tile * spp_per_slice == per, "tile*spp_per_slice != slice size"
-    # [tile, spp]: column-major spp within a slice, slices concatenated
-    # along 'spp' — psum('spp') reduces within ICI first, one hop on DCN
+    assert tile * spp_per_slice == per, "tile*spp_per_slice != host size"
+    # [tile, spp]: column-major spp within a host, hosts concatenated
+    # along 'spp' — psum('spp') reduces within a host first, then one
+    # inter-host hop
     cols = []
     for b in by_slice:
         arr = np.asarray(b, dtype=object).reshape(tile, spp_per_slice)
@@ -131,8 +133,8 @@ def render_batch_sharded(sd, eye, cam_rot, pixel_ids, sample_base,
                          cfg: RenderConfig, sppb: int, mesh: Mesh):
     """Sharded render step: pixel_ids split over 'tile', samples over 'spp'.
 
-    Returns radiance sums [P, 3] sharded on 'tile' (each chip holds its
-    film shard; the 'spp' axis is psum-reduced over ICI).
+    Returns radiance sums [P, 3] sharded on 'tile' (each GPU holds its
+    film shard; the 'spp' axis is psum-reduced).
 
     pixel_ids length must be divisible by mesh.shape['tile'].
     """
@@ -151,7 +153,7 @@ def render_batch_sharded(sd, eye, cam_rot, pixel_ids, sample_base,
         nearest = render_mod.make_nearest(sd_, cfg, jnp)
         rad = wavefront.trace_radiance(o, d, pid, sid, sd_, cfg, jnp, nearest)
         out = rad.reshape(sppb, p, 3).sum(axis=0)
-        return jax.lax.psum(out, "spp")  # ICI reduction over the spp axis
+        return jax.lax.psum(out, "spp")  # reduction over the spp axis
 
     fn = jax.shard_map(
         shard_fn,
@@ -168,7 +170,7 @@ def render_batch_sharded(sd, eye, cam_rot, pixel_ids, sample_base,
 @functools.partial(jax.jit, static_argnames=("mesh",))
 def gather_film(tile_shards, mesh: Mesh):
     """Assemble the full film from tile shards with an explicit
-    all_gather over ICI (the pass2-style tile accumulation step when a
+    all_gather (the pass2-style tile accumulation step when a
     replicated copy is needed, e.g. before host-side post or saving)."""
 
     def fn(local):
@@ -218,13 +220,6 @@ def render_film_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
     mesh.shape['spp'] * sppb samples."""
     npix = cfg.width * cfg.height
     n_tile_ = mesh.shape["tile"]
-    if cfg.engine == "mega" and cfg.integrator == "full":
-        from ..integrator import mega as mega_mod
-
-        if mega_mod.eligible(sd, cfg):
-            return render_film_mega_distributed(sd, cam, cfg, mesh,
-                                                film=film)
-        cfg = cfg.replace(engine="pool")
     if cfg.engine == "pool" and cfg.integrator == "full":
         assert cfg.spp % mesh.shape["spp"] == 0, "spp must divide spp axis"
         if film is None:
@@ -270,81 +265,3 @@ def render_film_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
         done += step * n_spp
     return Film(accum=accum.reshape(cfg.height, cfg.width, 3),
                 count=film.count + done)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "mesh", "shard_px",
-                                             "interpret", "mopts"))
-def _mega_render_sharded(tabs, cam24, sample_base, sd, mtriu,
-                         cfg: RenderConfig,
-                         mesh: Mesh, shard_px: int, interpret: bool,
-                         mopts=()):
-    """Megakernel over the mesh: each 'tile' shard runs the whole-render
-    kernel on its contiguous TM-aligned pixel window (the kernel's
-    dynamic pixel-offset input), 'spp' shards render disjoint sample-id
-    ranges of the same window and psum-reduce over ICI — the shard_map
-    x pallas composition the pod actually executes."""
-    from ..ops.pallas import mega as megak
-
-    tri8, mat16, envp, buk, win, ota, ltab, lights2 = tabs
-    n_spp = mesh.shape["spp"]
-    spp_local = cfg.spp // n_spp
-    npix = cfg.width * cfg.height
-
-    def shard_fn(tri8_, mat16_, envp_, buk_, win_, ota_, ltab_, lights2_,
-                 cam24_, base_, sd_, mtriu_):
-        t = jax.lax.axis_index("tile")
-        s_ = jax.lax.axis_index("spp")
-        ints = (jnp.zeros((8,), jnp.int32)
-                .at[2].set(base_ + s_ * spp_local)
-                .at[3].set(t * shard_px)).reshape(1, 8)
-        out = megak.render_mega(
-            sd_.n_clusters, ints, cam24_, ltab_, lights2_,
-            sd_.cluster_planes, sd_.cluster_begin_col, mtriu_,
-            sd_.cluster_coef, tri8_, mat16_, envp_, buk_, win_, ota_,
-            sd_.cluster_sub16_planes,
-            cfg=cfg.replace(spp=1), npix=npix, e_cnt=sd_.n_emit,
-            has_sss=sd_.has_sss,
-            env_shape=(int(sd_.env_map.shape[0]), int(sd_.env_map.shape[1])),
-            cdf_window=16, spp=spp_local,
-            has_refract=sd_.has_refract, shard_px=shard_px,
-            gather=cfg.mega_gather, interpret=interpret,
-            **dict(mopts))
-        return jax.lax.psum(out, "spp")
-
-    return jax.shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(),) * 12,
-        out_specs=P(None, "tile"),
-        check_vma=False,
-    )(tri8, mat16, envp, buk, win, ota, ltab, lights2, cam24,
-      jnp.asarray(sample_base, jnp.int32), sd, mtriu)
-
-
-def render_film_mega_distributed(sd, cam, cfg: RenderConfig, mesh: Mesh,
-                                 film: Optional[Film] = None) -> Film:
-    """Distributed megakernel film render (engine='mega' mesh path)."""
-    from ..integrator import mega as mega_mod
-    from ..ops.pallas import mega as megak
-
-    assert cfg.spp % mesh.shape["spp"] == 0, "spp must divide spp axis"
-    npix = cfg.width * cfg.height
-    n_tile = mesh.shape["tile"]
-    tmq = int(getattr(cfg, "mega_tile", megak.TM) or megak.TM)
-    shard_px = -(-npix // (n_tile * tmq)) * tmq
-    if film is None:
-        film = Film.create(cfg.height, cfg.width)
-    tabs = mega_mod._tables(sd, jnp)
-    cam24 = jnp.concatenate([
-        jnp.asarray(cam.camera_rotate, jnp.float32).reshape(-1),
-        jnp.asarray(cam.eye, jnp.float32),
-        jnp.zeros((5,), jnp.float32)]).reshape(1, 24)
-    interpret = jax.default_backend() == "cpu"
-    mopts = mega_mod.kernel_opts(sd, cfg)
-    mtriu = mopts.pop("triu")
-    out = _mega_render_sharded(tabs, cam24, film.count, sd, mtriu, cfg,
-                               mesh, shard_px, interpret,
-                               mopts=tuple(sorted(mopts.items())))
-    rad = jnp.transpose(out[0:3, :npix], (1, 0)).reshape(
-        cfg.height, cfg.width, 3)
-    return Film(accum=film.accum + rad,
-                count=film.count + jnp.int32(cfg.spp))

@@ -2,7 +2,7 @@
 //
 // The reference's host-side scene pipeline is C++ (readObj
 // PathTrace.cpp:366-466, buildBVHwithSAH PathTrace.cpp:532-663); this
-// library is the TPU build's equivalent native runtime: a fast SAH/median
+// library is this build's native runtime: a fast SAH/median
 // BVH builder and a Wavefront-OBJ parser, exposed with a C ABI consumed
 // via ctypes (accel/native.py, scene/objloader.py). Semantics match the
 // NumPy implementations exactly (equivalence-tested in

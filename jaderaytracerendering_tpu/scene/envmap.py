@@ -8,7 +8,7 @@ bilinear filtering with mirror addressing like the CUDA texture refs
 nearest/clamp-to-edge textures (PathTrace.cpp:283-287) — available via
 ``filtering='nearest_clamp'``.
 
-xp-agnostic: the same code drives the NumPy oracle and the jit'd TPU
+xp-agnostic: the same code drives the NumPy oracle and the jit'd
 integrator (gathers become XLA gathers).
 """
 
@@ -73,9 +73,8 @@ def pack_bilinear(img, xp):
     [(H+1)*(W+1), 16] indexed by the RAW (pre-mirror) floor coordinates
     (y0+1, x0+1), y0 in [-1, H-1], x0 in [-1, W-1].
 
-    TPU gathers want wide contiguous rows: the plain bilinear path costs
-    four scattered [M]-row gathers per sample (measured ~0.7 ms per 16k
-    lanes per site); one 64-byte-row gather is ~3x cheaper. Each row
+    One 64-byte-row gather replaces four scattered [M]-row gathers per
+    sample. Each row
     holds (c00, c01, c10, c11, pad) with the mirror addressing of the
     CUDA texture refs (PathTrace.cu:1652-1665) baked in from the raw
     index — raw -1 and 0 mirror to the same base texel but different
@@ -136,8 +135,7 @@ def sample_env_packed(pack, shape, dirs, xp, clamp: float = 10.0):
 def sample_env_packed_p(pack, shape, d, xp, clamp: float = 10.0):
     """Plane (SoA) form of sample_env_packed: ``d`` is a vecmath.V3 of
     unit-direction planes; returns a V3. One wide row gather, transposed
-    to [16, M] so the 2x2 texel reads are dense sublane rows (a [M, 16]
-    column slice pays the 8x lane pad; docs/PERF.md round-3). Identical
+    to [16, M] so the 2x2 texel reads are contiguous rows. Identical
     math and rounding order to sample_env_packed."""
     from ..core.vecmath import V3, v3rows
 

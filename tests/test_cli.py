@@ -12,7 +12,7 @@ from jaderaytracerendering_tpu.post import image_io
 def test_render_cli_bmp(tmp_path):
     out = str(tmp_path / "out.bmp")
     render_cli.main([
-        "--scene", "tiny", "--width", "12", "--height", "12", "--spp", "2",
+        "--cpu", "--scene", "tiny", "--width", "12", "--height", "12", "--spp", "2",
         "--max-depth", "2", "--traversal", "bvh", "--out", out,
     ])
     img = image_io.read_bmp(out)
@@ -24,8 +24,8 @@ def test_render_cli_film_checkpoint_resume(tmp_path):
     film = str(tmp_path / "film.npz")
     out1 = str(tmp_path / "a.bmp")
     out2 = str(tmp_path / "b.bmp")
-    args = ["--scene", "tiny", "--width", "8", "--height", "8", "--spp", "2",
-            "--max-depth", "2", "--traversal", "bvh"]
+    args = ["--cpu", "--scene", "tiny", "--width", "8", "--height", "8",
+            "--spp", "2", "--max-depth", "2", "--traversal", "bvh"]
     render_cli.main(args + ["--out", out1, "--save-film", film])
     assert os.path.exists(film)
     # resume doubles the sample count and still writes a valid image
@@ -44,7 +44,7 @@ def test_render_cli_render_args_input(tmp_path):
     serialization.write_render_args(ra, spec)
     out = str(tmp_path / "out.png")
     render_cli.main([
-        "--render-args", ra, "--width", "8", "--height", "8", "--spp", "1",
+        "--cpu", "--render-args", ra, "--width", "8", "--height", "8", "--spp", "1",
         "--max-depth", "2", "--traversal", "bvh", "--out", out,
     ])
     assert os.path.exists(out)
@@ -53,7 +53,7 @@ def test_render_cli_render_args_input(tmp_path):
 def test_preview_cli_headless_frames(tmp_path):
     out = str(tmp_path / "prev.png")
     preview_cli.main([
-        "--scene", "tiny", "--width", "8", "--height", "8",
+        "--cpu", "--scene", "tiny", "--width", "8", "--height", "8",
         "--traversal", "bvh", "--frames", "2", "--out", out,
     ])
     assert os.path.exists(out)
@@ -62,7 +62,7 @@ def test_preview_cli_headless_frames(tmp_path):
 def test_render_cli_mesh(tmp_path):
     out = str(tmp_path / "mesh.bmp")
     render_cli.main([
-        "--scene", "tiny", "--width", "8", "--height", "8", "--spp", "2",
+        "--cpu", "--scene", "tiny", "--width", "8", "--height", "8", "--spp", "2",
         "--max-depth", "2", "--traversal", "bvh", "--mesh", "4x2",
         "--out", out,
     ])
@@ -78,7 +78,7 @@ def test_render_cli_custom_hdr(tmp_path):
     hdr.write_hdr(p, hdr.procedural_sky(16, 32, sun_intensity=5.0))
     out = str(tmp_path / "h.png")
     render_cli.main([
-        "--scene", "tiny", "--hdr", p, "--width", "8", "--height", "8",
+        "--cpu", "--scene", "tiny", "--hdr", p, "--width", "8", "--height", "8",
         "--spp", "1", "--max-depth", "2", "--traversal", "bvh", "--out", out,
     ])
     assert os.path.exists(out)
@@ -92,6 +92,16 @@ def test_render_cli_config_json(tmp_path):
         f.write(RenderConfig(width=8, height=8, spp=1, max_depth=2,
                              traversal="bvh").to_json())
     out = str(tmp_path / "c.bmp")
-    render_cli.main(["--scene", "tiny", "--config", cfgp, "--out", out])
+    render_cli.main(["--cpu", "--scene", "tiny", "--config", cfgp,
+                     "--out", out])
     img = image_io.read_bmp(out)
     assert img.shape == (8, 8, 3)
+
+
+def test_cli_without_gpu_needs_cpu_flag(tmp_path):
+    """No silent CPU fallback: on a host without a GPU the CLIs refuse
+    to run unless --cpu asks for the CPU."""
+    for cli in (render_cli, preview_cli):
+        with pytest.raises(SystemExit, match="--cpu"):
+            cli.main(["--scene", "tiny", "--width", "8", "--height", "8",
+                      "--out", str(tmp_path / "x.bmp")])

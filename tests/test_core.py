@@ -77,13 +77,15 @@ class TestRng:
         assert float(rng.uniform(np, 5, 6, 7, 8)) == float(rng.uniform(np, 5, 6, 7, 8))
 
     def test_uniform_sites_matches_per_site_calls(self):
-        # the megakernel's batched [S, TM] draw must be bit-identical
-        # to S independent uniform() calls (oracle parity depends on it)
+        # the bounce's batched [S, M] draw (a broadcast site column, as
+        # wavefront.front_precompute makes it) must be bit-identical to
+        # S independent uniform() calls (oracle parity depends on it)
         pid = np.arange(512, dtype=np.uint32).reshape(1, 512)
         sites = [2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 64, 65, 66, 67]
         for xp in (np, jnp):
-            batched = np.asarray(rng.uniform_sites(
-                xp, xp.asarray(pid), 3, 2, sites, seed=9))
+            col = xp.asarray(np.asarray(sites, np.uint32)[:, None])
+            batched = np.asarray(rng.uniform(
+                xp, xp.asarray(pid), 3, 2, col, seed=9))
             for i, s in enumerate(sites):
                 single = np.asarray(rng.uniform(
                     xp, xp.asarray(pid), 3, 2, int(s), seed=9))

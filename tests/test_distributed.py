@@ -1,11 +1,11 @@
-"""DCN multi-slice smoke: two REAL processes over jax.distributed.
+"""Multi-host smoke: two REAL processes over jax.distributed.
 
-The reference is single-GPU (SURVEY §2.3); the TPU build's pod story is
-init_distributed() + make_multislice_mesh() + the unchanged sharded
+The reference is single-GPU (SURVEY §2.3); this build's multi-host story
+is init_distributed() + make_multihost_mesh() + the unchanged sharded
 render entry points. This test launches two OS processes that form a
 jax.distributed cluster on the CPU backend (4 virtual devices each),
-build the (tile=4, spp=2) multislice mesh — the 'spp' axis spanning the
-two processes, the DCN analogue — render one batch of the tiny demo
+build the (tile=4, spp=2) multi-host mesh — the 'spp' axis spanning the
+two processes, as it spans hosts — render one batch of the tiny demo
 scene, and check the gathered film against a single-process render of
 the same mesh shape bit-exactly.
 """
@@ -52,7 +52,7 @@ sd = assemble(ds.objects, ds.env_map, xp=jnp)
 cfg = RenderConfig(width=8, height=8, spp=2, spp_batch=1, max_depth=2,
                    traversal="clusters")
 
-mesh = sh.make_multislice_mesh(spp_per_slice=1)
+mesh = sh.make_multihost_mesh(spp_per_slice=1)
 assert mesh.shape == {"tile": 4, "spp": 2}, mesh.shape
 # the 'spp' axis must span the two processes (the DCN axis)
 spp_procs = {d.process_index for d in mesh.devices[0, :]}

@@ -176,6 +176,28 @@ class TestNearestHit:
         np.testing.assert_array_equal(i1, np.asarray(i2))
         np.testing.assert_allclose(t1, np.asarray(t2), rtol=1e-5)
 
+    def test_bvh_dead_lanes_miss_without_walking(self, scene_np):
+        """Zero-direction (masked) lanes start with an empty stack: they
+        miss and cost the walk no steps, so live lanes' results are
+        unchanged and the loop runs no longer than for the live lanes."""
+        import jax
+
+        sd = scene_np
+        sd_j = jax.tree.map(jnp.asarray, sd)
+        o, d = _random_rays(64, 4)
+        d[::2] = 0.0
+        ex = np.full(64, -1, np.int32)
+        h, i, t = traverse.nearest_hit_bvh_np(o, d, ex, sd)
+        assert not h[::2].any() and (t[::2] == traverse.INF).all()
+        hl, il, tl = traverse.nearest_hit_bvh_np(o[1::2], d[1::2], ex[1::2], sd)
+        np.testing.assert_array_equal(h[1::2], hl)
+        np.testing.assert_array_equal(i[1::2], il)
+        sp0 = traverse._init_state(jnp.asarray(d), 8, jnp)[0]
+        np.testing.assert_array_equal(np.asarray(sp0), np.arange(64) % 2)
+        h2, _, _ = traverse.nearest_hit_bvh_jnp(
+            jnp.asarray(o), jnp.asarray(d), jnp.asarray(ex), sd_j)
+        np.testing.assert_array_equal(h, np.asarray(h2))
+
     def test_exclusion(self, scene_np):
         sd = scene_np
         # shoot a ray straight at a known triangle, then exclude it

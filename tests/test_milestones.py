@@ -1,7 +1,7 @@
 """BASELINE.md milestone configs, scaled to CI sizes.
 
 Each test is a shrunken version of one driver config; the full-size runs
-go through bench.py / the render CLI on TPU hardware.
+go through bench.py / the render CLI and chip_smoke.py on the GPU.
 """
 
 import dataclasses
@@ -109,7 +109,7 @@ def test_config5_multichip_tiled_film_with_tonemap():
     sd = assemble(ds.objects, ds.env_map, xp=jnp)
     cfg = RenderConfig(width=8, height=8, spp=4, spp_batch=2, max_depth=2,
                        traversal="bvh")
-    mesh = sharding.make_mesh((4, 2))
+    mesh = sharding.make_mesh((2, 2))  # configs/config5: four GPUs
     film = sharding.render_film_distributed(sd, ds.camera, cfg, mesh)
     img = tonemap.finalize(np.asarray(film.mean())[::-1], np, "aces")
     assert img.shape == (8, 8, 3)

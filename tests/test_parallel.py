@@ -73,7 +73,7 @@ def test_sharded_production_sweep_kernel(scene, engine):
     """shard_map x pallas_call composition: the PRODUCTION traversal
     (Pallas cluster sweep, interpret mode on CPU) must run and match the
     single-device render inside both sharded engines — this is the code
-    path a real pod executes (VERDICT r2 weak #5)."""
+    path a multi-GPU host executes."""
     ds, sd = scene
     cfg = _cfg(traversal="sweep", engine=engine, spp=4)
     mesh = sharding.make_mesh((2, 2))
@@ -133,24 +133,18 @@ def test_gather_film_all_gather(scene):
     assert len(full.sharding.device_set) == 8  # replicated on all
 
 
-@pytest.mark.slow
-def test_sharded_mega_engine_matches_single(scene):
-    """The megakernel engine over the mesh (per-shard whole-render
-    kernels on dynamic pixel windows, spp psum) equals the single-device
-    megakernel film."""
-    import numpy as np
-
-    from jaderaytracerendering_tpu.integrator import mega as mega_mod
-
-    # take-gather: the fast interpret path (loop/block pinned equal in
-    # test_mega); the sharded composition is what this test validates
-    cfg = _cfg(engine="mega", traversal="sweep", spp=4,
-               mega_gather="take")
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_mesh_render_matches_single_device(scene, shape):
+    """The --mesh render at the GPU defaults (pool engine, sweep kernel
+    interpreted here) equals the one-device render of the same samples:
+    RNG streams are keyed by (pixel, sample), so only the fp32 summation
+    order differs."""
     ds, sd = scene
-    assert mega_mod.eligible(sd, cfg)
-    single = np.asarray(mega_mod.render_film_mega(sd, ds.camera, cfg).mean())
-    for shape in ((4, 1), (2, 2)):
-        mesh = sharding.make_mesh(shape)
-        f = sharding.render_film_distributed(sd, ds.camera, cfg, mesh)
-        np.testing.assert_allclose(np.asarray(f.mean()), single,
-                                   rtol=1e-4, atol=1e-5)
+    cfg = RenderConfig(width=8, height=8, spp=4, spp_batch=2, max_depth=2,
+                       rays_per_launch=64)
+    mesh = sharding.make_mesh(shape)
+    film_d = sharding.render_film_distributed(sd, ds.camera, cfg, mesh)
+    film_s = R.render_film(sd, ds.camera, cfg)
+    assert int(film_d.count) == int(film_s.count) == 4
+    a, b = np.asarray(film_d.accum), np.asarray(film_s.accum)
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5 * np.abs(b).max())

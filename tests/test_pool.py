@@ -86,38 +86,48 @@ def test_pool_distributed_matches_single():
         )
 
 
-@pytest.mark.slow
-def test_pool_spawn_kernel_sweep_matches_scan():
-    """The production TPU route — pool engine, Pallas sweep traversal,
-    Pallas spawn front (cfg.spawn_kernel) — vs the scan engine.
+def _many_lights_setup(**kw):
+    """The jade scene plus an emissive sphere: more than 19 emissive
+    triangles, one NEE shadow-ray segment per light."""
+    from jaderaytracerendering_tpu.scene import material, objloader, procedural
+    from jaderaytracerendering_tpu.scene import transforms
+    from jaderaytracerendering_tpu.scene.scene import SceneObject
 
-    The sharded tests keep the XLA spawn (film-shard pixel_ids), so this
-    is the only suite coverage of ops/pallas/spawn_front end-to-end.
-    interpret-mode kernels on the CPU backend."""
-    ds, sd, cfg = _setup(traversal="sweep", rays_per_launch=256, spp=4)
-    assert cfg.spawn_kernel
-    a = np.asarray(
-        R.render_film(sd, ds.camera, cfg.replace(engine="scan")).mean())
+    ds = demo.jade_scene(n_buddha_tris=300, env_shape=(16, 32))
+    ds.camera.r = 2.0
+    v, f = procedural.uv_sphere(3, 6)
+    mesh = objloader.mesh_from_arrays(v, f, transform=transforms.transform_matrix(
+        translate=(0.6, 0.8, 0.3), scale=(0.15, 0.15, 0.15)))
+    ds.objects.append(SceneObject(mesh=mesh, material=material.LIGHT_1000,
+                                  name="sphere_light"))
+    sd = assemble(ds.objects, ds.env_map, xp=jnp)
+    base = dict(width=8, height=8, spp=2, spp_batch=2, max_depth=3,
+                traversal="bvh", rays_per_launch=64)
+    base.update(kw)
+    return ds, sd, RenderConfig(**base)
+
+
+@pytest.mark.parametrize("case", ["many_lights", "sweep", "sweep_many_lights"])
+def test_pool_matches_scan_on_gpu_route(case):
+    """The pool engine (its one XLA path) equals the scan engine — with
+    more than 19 emissive triangles and with the sweep kernel."""
+    if case == "sweep":
+        ds, sd, cfg = _setup(traversal="sweep", rays_per_launch=128)
+    else:
+        ds, sd, cfg = _many_lights_setup(
+            traversal="sweep" if case.startswith("sweep") else "bvh")
+        assert sd.n_emit > 19
+    a = np.asarray(R.render_film(sd, ds.camera, cfg.replace(engine="scan")).mean())
     b = np.asarray(pool.render_film_pool(sd, ds.camera, cfg).mean())
     scale = max(np.abs(a).max(), 1.0)
     np.testing.assert_allclose(b, a, atol=1e-4 * scale, rtol=1e-3)
 
 
-
-
-@pytest.mark.parametrize("rounds", [1, 2])
-@pytest.mark.slow
-def test_pool_spawn_kernel_off_matches_on(rounds):
-    """spawn_kernel=False (XLA spawn chain) and True (Pallas spawn front)
-    produce the same film (up to FMA-contraction ulps, which the 8x8
-    4spp tolerance absorbs) INCLUDING work-queue exhaustion: spp*npix
-    isn't a multiple of the pool size, so the final rounds spawn a
-    partial batch and the queue cut (meta row 4) must match pool.spawn —
-    and with spawn_rounds=2, miss lanes staying fresh across rounds."""
-    ds, sd, cfg = _setup(traversal="sweep", rays_per_launch=192, spp=3,
-                         spawn_rounds=rounds)
-    on = np.asarray(pool.render_film_pool(sd, ds.camera, cfg).mean())
-    off = np.asarray(pool.render_film_pool(
-        sd, ds.camera, cfg.replace(spawn_kernel=False)).mean())
-    scale = max(np.abs(off).max(), 1.0)
-    np.testing.assert_allclose(on, off, atol=1e-4 * scale, rtol=1e-3)
+def test_pool_reports_useful_rays():
+    ds, sd, cfg = _setup(spp=2)
+    rays = []
+    R.render_film(sd, ds.camera, cfg, rays=rays)
+    n = sum(float(r) for r in rays)
+    # at least the primary rays, at most every lane's full (E+2) fan-out
+    # per bounce plus the primaries
+    assert 64 * 2 <= n <= 64 * 2 * (1 + cfg.max_depth * (sd.n_emit + 2))

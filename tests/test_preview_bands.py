@@ -58,18 +58,6 @@ def test_banded_rotation_matches_full_frame_pool(scene):
                                   np.asarray(band_disp))
 
 
-def test_banded_rotation_matches_full_frame_mega(scene):
-    ds, sd = scene
-    cfg = RenderConfig(width=32, height=32, spp=1, spp_batch=1,
-                       max_depth=2, integrator="preview", engine="mega",
-                       mega_tile=128, mega_gather="take",
-                       preview_bands=4)
-    full, _ = _full_frame(ds, sd, cfg)
-    band, band_disp = _banded_rotation(ds, sd, cfg)
-    np.testing.assert_array_equal(np.asarray(full.accum),
-                                  np.asarray(band.accum))
-
-
 def test_partial_rotation_display_counts(scene):
     # after ONE banded frame only band 0's rows are populated and the
     # display must divide band 0 by its real count (not the film count)

@@ -1,4 +1,4 @@
-"""North-star quality gate: RMSE of the TPU pipeline vs the CPU oracle
+"""North-star quality gate: RMSE of the device pipeline vs the CPU oracle
 at the literal BASELINE.md setting (1024 spp).
 
 BASELINE.md: "RMSE < 1e-3 vs CPU reference at 1024 spp". docs/PARITY.md
@@ -6,8 +6,9 @@ argued from RNG-stream identity that the error is spp-independent
 (~1e-6 relative); this script closes the claim with a measured number:
 an 8x8 film at 1024 spp through (a) the scalar NumPy oracle
 (cpuref.integrator — independent branchy-scalar transcription) and
-(b) the production jnp wavefront pipeline, on the current JAX backend
-(run on TPU for the hardware number; --cpu for the backend-exact check).
+(b) the production pipeline at the default engine and traversal, on the
+current JAX backend (run on the GPU for the hardware number; --cpu for
+the backend-exact check).
 
 Writes the result line for docs/PARITY.md to stdout.
 """
@@ -48,8 +49,7 @@ def main():
     ds = demo.jade_scene(n_buddha_tris=args.tris, env_shape=(16, 32))
     ds.camera.r = 2.0  # statue covers lanes -> SSS/mirror branches active
     cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp,
-                       spp_batch=8, max_depth=args.depth, traversal="sweep",
-                       engine="pool")
+                       spp_batch=8, max_depth=args.depth)
 
     sdn = assemble(ds.objects, ds.env_map, xp=np)
     t0 = time.perf_counter()
@@ -60,7 +60,7 @@ def main():
     t0 = time.perf_counter()
     film = R.render_film(sdj, ds.camera, cfg)
     got = np.asarray(film.mean())
-    t_tpu = time.perf_counter() - t0
+    t_dev = time.perf_counter() - t0
 
     scale = max(float(np.abs(ref).max()), 1e-12)
     rmse_rel = float(np.sqrt(np.mean((got - ref) ** 2))) / scale
@@ -68,9 +68,10 @@ def main():
     backend = jax.default_backend()
     print(
         f"RMSE gate: {args.size}x{args.size} @ {args.spp} spp depth "
-        f"{args.depth} ({args.tris} tris, pool+sweep, backend={backend}): "
+        f"{args.depth} ({args.tris} tris, {cfg.engine}+{cfg.traversal}, "
+        f"backend={backend}): "
         f"relative RMSE = {rmse_rel:.3e}, max rel err = {max_rel:.3e} "
-        f"(gate < 1e-3; oracle {t_oracle:.0f}s, pipeline {t_tpu:.0f}s)"
+        f"(gate < 1e-3; oracle {t_oracle:.0f}s, pipeline {t_dev:.0f}s)"
     )
     assert rmse_rel < 1e-3, "north-star RMSE gate FAILED"
     print("PASS")
